@@ -26,14 +26,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.metrics import trajectory as traj_metrics
-from srrg2_proslam_tpu.models.frontend import (
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.metrics import trajectory as traj_metrics
+from srrg2_proslam_jax.models.frontend import (
     DepthAdaptorConfig, StereoAdaptorConfig, adapt_rgbd, adapt_stereo,
 )
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig
-from srrg2_proslam_tpu.utils import config as cfg
-from srrg2_proslam_tpu.utils import profiling
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig
+from srrg2_proslam_jax.utils import config as cfg
+from srrg2_proslam_jax.utils import profiling
+from srrg2_proslam_jax.utils.compile_cache import enable_compile_cache
 
 # reference CI regression thresholds (benchmarks/benchmark_*.cpp:17-21);
 # "synthetic" is the rendered closed-loop sequence (io/synthetic.py) gated
@@ -61,7 +62,7 @@ CAMERAS = {
 
 def iter_frames(args):
     if args.dataset == "synthetic":
-        from srrg2_proslam_tpu.io import synthetic as syn
+        from srrg2_proslam_jax.io import synthetic as syn
 
         yield from syn.iter_rendered_loop(count=args.count)
     elif args.sequence is None:
@@ -78,13 +79,13 @@ def iter_frames(args):
     elif args.dataset == "malaga":
         yield from datasets.iter_malaga_stereo(args.sequence, count=args.count)
     elif args.dataset == "boss":
-        from srrg2_proslam_tpu.io import boss
+        from srrg2_proslam_jax.io import boss
 
         yield from boss.iter_boss_stereo(
             args.sequence, count=args.count,
             left_topic=args.left_topic, right_topic=args.right_topic)
     elif args.dataset == "boss-rgbd":
-        from srrg2_proslam_tpu.io import boss
+        from srrg2_proslam_jax.io import boss
 
         yield from boss.iter_boss_rgbd(
             args.sequence, count=args.count,
@@ -127,15 +128,16 @@ def main():
                     help="capture a jax.profiler device trace into this dir")
     ap.add_argument("--viewer-port", type=int, default=None,
                     help="serve a live top-down map/trajectory view on this "
-                         "port (srrg2_proslam_tpu.viz.LiveViewer — the "
+                         "port (srrg2_proslam_jax.viz.LiveViewer — the "
                          "example_slam_3d.cpp viewer analog; 0 = any port)")
     ap.add_argument("--viewer-every", type=int, default=25,
                     help="refresh the live view every N frames")
     args = ap.parse_args()
+    enable_compile_cache()
 
     viewer = None
     if args.viewer_port is not None:
-        from srrg2_proslam_tpu.viz import LiveViewer
+        from srrg2_proslam_jax.viz import LiveViewer
 
         viewer = LiveViewer(port=args.viewer_port)
 
@@ -151,7 +153,7 @@ def main():
         # camera-info-driven initialization (reference
         # apps/app_benchmark.cpp:56-74): the cam-in-body extrinsic of the
         # RECTIFIED camera feeds the tracker's sensor offset
-        from srrg2_proslam_tpu.io.rectify import find_euroc_rectification
+        from srrg2_proslam_jax.io.rectify import find_euroc_rectification
 
         rect = find_euroc_rectification(args.sequence)
         if rect is not None and rect.T_B_rect is not None:
@@ -166,7 +168,7 @@ def main():
     first = next(iter(frames))
     if rgbd:
         if args.dataset == "boss-rgbd":
-            from srrg2_proslam_tpu.io import boss
+            from srrg2_proslam_jax.io import boss
 
             cam = boss.boss_camera(args.sequence)
             if cam is None:
@@ -180,7 +182,7 @@ def main():
                    else DepthAdaptorConfig())
     else:
         if args.dataset == "synthetic":
-            from srrg2_proslam_tpu.io import synthetic as syn
+            from srrg2_proslam_jax.io import synthetic as syn
 
             cam = syn.synthetic_camera(*first.left.shape)
         elif args.dataset == "kitti":
@@ -194,7 +196,7 @@ def main():
         elif args.dataset == "boss":
             # camera-info-driven initialization from the log itself
             # (InitializerStereoCamera3D analog, app_benchmark.cpp:56-74)
-            from srrg2_proslam_tpu.io import boss
+            from srrg2_proslam_jax.io import boss
 
             cam = boss.boss_camera(args.sequence)
             if cam is None:

@@ -26,8 +26,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.ops import features as F
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.ops import features as F
 
 
 def load_disparity(path: str, scale: float) -> np.ndarray:

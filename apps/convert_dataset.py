@@ -3,7 +3,7 @@
 Capability parity with the reference converters
 (reference srrg2_proslam/apps/convert_stereo_to_srrg2.cpp and
 convert_rgbd_to_srrg2.cpp, which serialize raw image folders into BOSS
-``messages.json`` logs) — redesigned for the TPU feed: frames are decoded
+``messages.json`` logs) — redesigned for the device feed: frames are decoded
 once (native decoder + prefetcher when built) and packed into a single
 uncompressed .npz of uint8/uint16 arrays that mmap-loads at full disk
 bandwidth, skipping per-frame PNG decode on every benchmark run.
@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from srrg2_proslam_tpu.io import datasets
+from srrg2_proslam_jax.io import datasets
 
 
 def main():
@@ -41,7 +41,7 @@ def main():
     if args.format == "boss":
         if rgbd:
             raise SystemExit("BOSS export currently supports stereo only")
-        from srrg2_proslam_tpu.io import boss
+        from srrg2_proslam_jax.io import boss
 
         if args.dataset == "kitti":
             frames = datasets.iter_kitti_odometry(args.sequence, args.gt,
@@ -99,7 +99,7 @@ def main():
     # (and the body-from-rectified-camera extrinsic), not raw cam0
     # intrinsics (round-2 advisor finding)
     if args.dataset == "euroc":
-        from srrg2_proslam_tpu.io.rectify import find_euroc_rectification
+        from srrg2_proslam_jax.io.rectify import find_euroc_rectification
 
         rect = find_euroc_rectification(args.sequence)
         if rect is not None:
@@ -118,7 +118,7 @@ def packed_camera(path):
     """Camera model recorded in a converted cache (None when absent).
 
     Returns (Camera, T_robot_sensor or None)."""
-    from srrg2_proslam_tpu.ops.pinhole import Camera
+    from srrg2_proslam_jax.ops.pinhole import Camera
 
     data = np.load(path, mmap_mode="r")
     if "camera" not in data:

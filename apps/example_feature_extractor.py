@@ -22,8 +22,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.ops import features as F
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.ops import features as F
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

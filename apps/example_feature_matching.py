@@ -17,13 +17,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.ops.features import FeatureExtractorConfig, extract_features
-from srrg2_proslam_tpu.ops.matching import (
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.ops.features import FeatureExtractorConfig, extract_features
+from srrg2_proslam_jax.ops.matching import (
     BruteforceMatcherConfig, EpipolarMatcherConfig,
     match_bruteforce, match_epipolar,
 )
-from srrg2_proslam_tpu.ops.triangulation import triangulate_rectified
+from srrg2_proslam_jax.ops.triangulation import triangulate_rectified
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

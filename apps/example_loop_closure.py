@@ -17,8 +17,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import loop_closure
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.models import loop_closure
+from srrg2_proslam_jax.ops import se3
 
 
 def main():

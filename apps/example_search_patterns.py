@@ -3,7 +3,7 @@
 Parity with the reference's example_projective_search_patterns.cpp, which
 rasterizes the square / circle / rhombus candidate regions of the
 projective correspondence finders (R5/R6) onto a 500x500 canvas.  Here the
-SAME predicate the TPU matcher evaluates — ``_geometric_distance(delta,
+SAME predicate the device matcher evaluates — ``_geometric_distance(delta,
 norm) <= radius`` over a dense pixel grid (ops/matching.py:182-187; the
 four reference lattice scans collapse into this one masked distance) —
 paints each region at the reference's sample positions and radii, and the
@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops.matching import _geometric_distance
+from srrg2_proslam_jax.ops.matching import _geometric_distance
 
 #: (radius, row, col) samples of the reference example (rows 60-76)
 SAMPLES = [(100, 150, 150), (50, 325, 325), (10, 410, 410), (5, 450, 450)]
@@ -53,12 +53,12 @@ def main():
         print(f"{norm:8s} regions painted at {len(SAMPLES)} scales "
               f"(intensity {color}, {area} px visible)")
 
-    from srrg2_proslam_tpu.io.datasets import save_gray
+    from srrg2_proslam_jax.io.datasets import save_gray
     save_gray(args.out, canvas.astype(np.float32))
     print(f"canvas written: {args.out} "
           "(square | circle | rhombus, like the reference window)")
 
-    # ASCII thumbnail (the tunnel has no display)
+    # ASCII thumbnail (headless hosts have no display)
     th = canvas[::12, ::6]
     chars = np.array([" ", ".", "o", "#"])
     idx = np.searchsorted([1, 100, 200], th)

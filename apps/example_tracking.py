@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.tracker import (
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.tracker import (
     TrackerConfig, initial_state, track_step,
 )
 

@@ -21,10 +21,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.ops.pinhole import Camera
-from srrg2_proslam_tpu.ops.triangulation import triangulate_rectified
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.ops.pinhole import Camera
+from srrg2_proslam_jax.ops.triangulation import triangulate_rectified
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

@@ -23,7 +23,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
+from srrg2_proslam_jax.io import datasets
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

@@ -1,8 +1,8 @@
 """Trajectory / map visualization export (F13 parity, offline).
 
 The reference renders live via srrg2_qgl_viewport (putPoints/putLine canvas,
-reference srrg2_proslam/apps/example_slam_3d.cpp:127-144).  Headless TPU
-pods have no GL; this tool renders the equivalent artifacts offline with
+reference srrg2_proslam/apps/example_slam_3d.cpp:127-144).  Headless accelerator
+hosts have no GL; this tool renders the equivalent artifacts offline with
 matplotlib: top-down trajectory vs ground truth, and the current landmark
 map colored by local map.
 

@@ -2,7 +2,7 @@
 //
 // The reference's message/dataset layer is C++ (srrg2_core message sources +
 // OpenCV imread; reference srrg2_proslam configurations/kitti.conf:617-745,
-// apps/convert_stereo_to_srrg2.cpp).  This library is the TPU framework's
+// apps/convert_stereo_to_srrg2.cpp).  This library is the JAX framework's
 // native equivalent: a dependency-free PNG (zlib) + PGM/PPM decoder used by
 // the prefetching dataset reader (prefetcher.cpp) so image decode never
 // blocks the device feed.

@@ -2,7 +2,7 @@
 //
 // The reference's message sources read + decode serially on the compute
 // thread (srrg2_core MessageFileSource; the pipeline is single-threaded,
-// SURVEY.md §2.3).  For a TPU pipeline the host must hide decode latency
+// SURVEY.md §2.3).  For an accelerator pipeline the host must hide decode latency
 // behind device compute: this prefetcher decodes a window of upcoming files
 // on a worker pool and hands frames out in order through a bounded queue.
 

@@ -15,17 +15,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache_ab"))
-
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.metrics import trajectory as tm
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.utils.compile_cache import enable_compile_cache
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.metrics import trajectory as tm
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, LocalBAConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig
 
 
 def run(local_ba: bool):
@@ -59,6 +57,7 @@ def run(local_ba: bool):
 
 
 def main():
+    enable_compile_cache()
     for enabled in (False, True):
         err, slam = run(enabled)
         rmse = np.asarray(err.mean_translation_rmse)

@@ -10,7 +10,7 @@ stretch:
     (sparse_stereo_gt, the reference's GT methodology);
   * short-horizon VO tracking inliers with each variant's measurements.
 
-Run:  python scripts/ab_seeded_detection.py  (CPU or TPU)
+Run:  python scripts/ab_seeded_detection.py  (CPU or GPU)
 """
 import os
 import sys
@@ -21,15 +21,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache_ab"))
-
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig
-from srrg2_proslam_tpu.models.tracker import TrackerConfig, initial_state, track_step
-from srrg2_proslam_tpu.ops import features as F
-from srrg2_proslam_tpu.ops.matching import match_epipolar
-from srrg2_proslam_tpu.ops.subpixel import refine_disparity
+from srrg2_proslam_jax.utils.compile_cache import enable_compile_cache
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig, initial_state, track_step
+from srrg2_proslam_jax.ops import features as F
+from srrg2_proslam_jax.ops.matching import match_epipolar
+from srrg2_proslam_jax.ops.subpixel import refine_disparity
 
 
 def adapt_variant(left, right, acfg, seeded: bool):
@@ -56,6 +54,7 @@ def adapt_variant(left, right, acfg, seeded: bool):
 
 
 def main():
+    enable_compile_cache()
     cam = syn.synthetic_camera(rows=320, cols=416, fx=300.0)
     planes = syn.make_room(size_x=18.0, size_z=26.0)
     poses = syn.loop_trajectory(side_a=8.0, side_b=6.0, step_m=0.4,

@@ -11,17 +11,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
-from srrg2_proslam_tpu.ops import se3
-from srrg2_proslam_tpu.ops.pinhole import project
-from srrg2_proslam_tpu.ops.matching import ProjectiveMatcherConfig, match_projective
-from srrg2_proslam_tpu.ops.gn import stereo_projective_system, gn_step
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig
+from srrg2_proslam_jax.ops import se3
+from srrg2_proslam_jax.ops.pinhole import project
+from srrg2_proslam_jax.ops.matching import ProjectiveMatcherConfig, match_projective
+from srrg2_proslam_jax.ops.gn import stereo_projective_system, gn_step
 
-CACHE = "/tmp/diag_turn_state.npz"
+CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                     ".diag_cache", "diag_turn_state.npz")
 
 
 def rebuild():
@@ -53,6 +54,7 @@ def rebuild():
     X_57 = np.asarray(se3.inverse(state.T_lm_robot))
     X_gt = delta_gt @ X_57
     T_pred = np.asarray(state.T_lm_robot) @ np.asarray(se3.exp(state.velocity))
+    os.makedirs(os.path.dirname(CACHE), exist_ok=True)
     np.savez(CACHE,
              arena_pos=np.asarray(state.arena.pos),
              arena_desc=np.asarray(state.arena.desc),

@@ -16,15 +16,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.metrics import trajectory as tm
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.metrics import trajectory as tm
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
-from srrg2_proslam_tpu.utils import config as cfg
+from srrg2_proslam_jax.models.tracker import TrackerConfig
+from srrg2_proslam_jax.utils import config as cfg
 
 
 def main():

@@ -12,11 +12,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.io.quaternions import quaternion_to_rotation
-from srrg2_proslam_tpu.models.frontend import DepthAdaptorConfig, adapt_rgbd
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.io.quaternions import quaternion_to_rotation
+from srrg2_proslam_jax.models.frontend import DepthAdaptorConfig, adapt_rgbd
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig
+from srrg2_proslam_jax.ops import se3
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

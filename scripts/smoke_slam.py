@@ -14,10 +14,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
+from srrg2_proslam_jax.ops import se3
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

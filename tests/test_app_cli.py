@@ -17,7 +17,7 @@ import pytest
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, ROOT)
 
-from srrg2_proslam_tpu.io import boss, datasets
+from srrg2_proslam_jax.io import boss, datasets
 
 
 def _run_main(argv):

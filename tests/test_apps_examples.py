@@ -25,7 +25,7 @@ def _load_app(name):
 
 
 def test_pfm_roundtrip(tmp_path, rng):
-    from srrg2_proslam_tpu.io import datasets
+    from srrg2_proslam_jax.io import datasets
 
     img = rng.uniform(0, 80, (24, 36)).astype(np.float32)
     path = os.path.join(tmp_path, "disp.pfm")
@@ -72,7 +72,7 @@ def test_sparse_stereo_gt_tool(tmp_path, rng):
     """CLI end to end on a PFM: output format matches the bundled
     scene_flow fixtures (row colL row colR disparity, colR = colL - d,
     ascending rows)."""
-    from srrg2_proslam_tpu.io import datasets
+    from srrg2_proslam_jax.io import datasets
 
     H, W = 96, 128
     left = rng.uniform(0, 255, (H, W)).astype(np.float32)

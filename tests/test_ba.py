@@ -8,8 +8,8 @@ both back to ground truth.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import ba, se3
-from srrg2_proslam_tpu.ops.pinhole import Camera
+from srrg2_proslam_jax.ops import ba, se3
+from srrg2_proslam_jax.ops.pinhole import Camera
 
 CAM = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600,
              baseline_px=450.0 * 0.5)
@@ -113,7 +113,7 @@ def test_ba_noisy_measurements_reduce_chi_and_pose_error(rng):
 
 def test_ba_sharded_matches_single_device(rng):
     import jax
-    from srrg2_proslam_tpu import parallel
+    from srrg2_proslam_jax import parallel
 
     problem, gt_poses, gt_pts = _build_problem(rng, n_poses=4, n_points=64)
     poses = np.asarray(problem.poses).copy()

@@ -12,8 +12,8 @@ import os
 
 import numpy as np
 
-from srrg2_proslam_tpu.io import boss
-from srrg2_proslam_tpu.io.datasets import StereoFrame, kitti_camera
+from srrg2_proslam_jax.io import boss
+from srrg2_proslam_jax.io.datasets import StereoFrame, kitti_camera
 
 
 def test_parse_reference_style_blocks():

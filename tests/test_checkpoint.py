@@ -2,14 +2,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import checkpoint
-from srrg2_proslam_tpu.io.datasets import kitti_camera
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
+from srrg2_proslam_jax.io import checkpoint
+from srrg2_proslam_jax.io.datasets import kitti_camera
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
 from tests.test_slam import CAM, _world, _stereo_measurements
 
 
 def _run(slam, pts_w, desc, zs):
-    import srrg2_proslam_tpu.ops.se3 as se3
+    import srrg2_proslam_jax.ops.se3 as se3
     for i, z in enumerate(zs):
         T_wc = np.eye(4, dtype=np.float32)
         T_wc[2, 3] = -z

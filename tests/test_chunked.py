@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig
 from tests.test_slam import CAM
 from tests.test_speculation import (
     _frames_linear, _frames_out_and_back,
@@ -195,8 +195,8 @@ def test_chunked_rgbd_image_path(rng):
     matching the per-frame loop."""
     import os
 
-    from srrg2_proslam_tpu.io import datasets
-    from srrg2_proslam_tpu.models.frontend import (
+    from srrg2_proslam_jax.io import datasets
+    from srrg2_proslam_jax.models.frontend import (
         DepthAdaptorConfig, adapt_rgbd,
     )
 

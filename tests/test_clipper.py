@@ -1,7 +1,7 @@
 """Scene-clipper unit tests (reference tests/test_scene_clippers.cpp parity).
 
 The reference clipper projects the local map through the current estimate
-and keeps in-frustum points (scene_clipper_projective_3d.cpp:46-66); the TPU
+and keeps in-frustum points (scene_clipper_projective_3d.cpp:46-66); the
 redesign is an in-view mask over the full arena inside the fused tracker
 step (models/tracker.py).  These tests pin the mask against a hand-computed
 frustum: landmarks behind the camera, outside the image bounds, or out of
@@ -10,11 +10,11 @@ range must not match, and must not block bins.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import landmarks as lm
-from srrg2_proslam_tpu.models.tracker import (
+from srrg2_proslam_jax.models import landmarks as lm
+from srrg2_proslam_jax.models.tracker import (
     MergerConfig, TrackerConfig, initial_state, track_step,
 )
-from srrg2_proslam_tpu.ops.pinhole import project
+from srrg2_proslam_jax.ops.pinhole import project
 from tests.test_merger import (
     CAP, N, _arena_with, _desc, _measurements, _step,
 )

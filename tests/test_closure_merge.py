@@ -11,12 +11,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import landmarks as lm
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models import landmarks as lm
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, RelocalizerConfig, _PendingFrame,
 )
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.ops import se3
 from tests.test_slam import CAM
 
 

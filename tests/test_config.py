@@ -1,8 +1,8 @@
 import json
 
-from srrg2_proslam_tpu.utils import config as cfg
-from srrg2_proslam_tpu.ops.features import FeatureExtractorConfig
-from srrg2_proslam_tpu.ops.matching import (
+from srrg2_proslam_jax.utils import config as cfg
+from srrg2_proslam_jax.ops.features import FeatureExtractorConfig
+from srrg2_proslam_jax.ops.matching import (
     BruteforceMatcherConfig,
     EpipolarMatcherConfig,
     ProjectiveMatcherConfig,

@@ -10,12 +10,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.metrics import trajectory as tm
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.metrics import trajectory as tm
+from srrg2_proslam_jax.ops import se3
 from tests.test_slam import CAM, _stereo_measurements
 
 
@@ -119,7 +119,7 @@ def test_chunked_device_memory_bounded(rng):
     (VERDICT r4 item 2).
 
     The reference keeps every local map in process RAM for the whole run
-    (app_benchmark.cpp:136-169); the chunked TPU orchestrator instead keeps
+    (app_benchmark.cpp:136-169); the chunked orchestrator instead keeps
     a bounded device cache and reloads through the host store.
     """
     import gc

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models.tracker import TrackerConfig, initial_state, track_step
+from srrg2_proslam_jax.models.tracker import TrackerConfig, initial_state, track_step
 from tests.test_slam import CAM, _world, _stereo_measurements
 
 
@@ -10,7 +10,7 @@ def _run(tcfg, rng):
     pts_w = _world(rng)
     desc = rng.choice(np.array([-1, 1], np.int8), size=(pts_w.shape[0], 256))
     state = initial_state(1024, estimator=tcfg.landmark_estimator)
-    import srrg2_proslam_tpu.ops.se3 as se3
+    import srrg2_proslam_jax.ops.se3 as se3
     T_wc = np.eye(4, dtype=np.float32)
     last = None
     for i in range(5):

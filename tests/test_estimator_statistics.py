@@ -20,8 +20,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.ops import ekf, pinhole, se3
-from srrg2_proslam_tpu.ops import landmark_estimators as le
+from srrg2_proslam_jax.ops import ekf, pinhole, se3
+from srrg2_proslam_jax.ops import landmark_estimators as le
 
 CAM = pinhole.Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0,
                      rows=400, cols=600, baseline_px=250.0)

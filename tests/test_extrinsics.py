@@ -10,12 +10,12 @@ configurations/kitti.conf:747-772).  These tests pin both capabilities.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import landmarks as lm
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
-from srrg2_proslam_tpu.models.tracker import (
+from srrg2_proslam_jax.models import landmarks as lm
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig, SplittingConfig
+from srrg2_proslam_jax.models.tracker import (
     TrackerConfig, initial_state, track_step,
 )
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.ops import se3
 from tests.test_slam import CAM, _world
 
 

@@ -5,7 +5,7 @@ Mirrors the synthetic fixture strategy of the reference tests
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import pinhole, triangulation
+from srrg2_proslam_jax.ops import pinhole, triangulation
 
 CAM = pinhole.Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600,
                      baseline_px=250.0)

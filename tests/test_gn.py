@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import gn, pinhole, se3
+from srrg2_proslam_jax.ops import gn, pinhole, se3
 
 CAM = pinhole.Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600,
                      baseline_px=250.0)
@@ -122,8 +122,8 @@ def test_gn_epsilon_termination_matches_fixed_count(rng):
     the step bound) — it only stops paying for no-op iterations."""
     import numpy as np
     import jax.numpy as jnp
-    from srrg2_proslam_tpu.ops import se3
-    from srrg2_proslam_tpu.ops.gn import gn_iterate, point3_system
+    from srrg2_proslam_jax.ops import se3
+    from srrg2_proslam_jax.ops.gn import gn_iterate, point3_system
 
     pts = jnp.asarray(rng.uniform(-5, 5, (200, 3)).astype(np.float32))
     T_gt = se3.exp(jnp.asarray(
@@ -147,8 +147,8 @@ def test_gn_unrolled_matches_while_loop(rng):
     degenerate min_inliers freeze."""
     import numpy as np
     import jax.numpy as jnp
-    from srrg2_proslam_tpu.ops import se3
-    from srrg2_proslam_tpu.ops.gn import gn_iterate, point3_system
+    from srrg2_proslam_jax.ops import se3
+    from srrg2_proslam_jax.ops.gn import gn_iterate, point3_system
 
     pts = jnp.asarray(rng.uniform(-5, 5, (100, 3)).astype(np.float32))
     T_gt = se3.exp(jnp.asarray(

@@ -4,16 +4,16 @@ The kernel (ops/gn_pallas.py) must converge to the same pose and report
 the same inlier statistics as the reference-parity XLA path
 (ops/gn.py::gn_iterate over stereo_projective_system) — reduction order
 differs, so the bound is a tight float tolerance, not bit equality.
-Runs in interpreter mode on CPU (the TPU smoke lane exercises the
-compiled kernel on hardware).
+Runs in interpreter mode on CPU; chip_smoke.py checks the compiled
+kernel on the GPU at the tracker's widths.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.ops import gn, se3
-from srrg2_proslam_tpu.ops.gn_pallas import gn_burst_stereo
-from srrg2_proslam_tpu.ops.pinhole import Camera
+from srrg2_proslam_jax.ops import gn, se3
+from srrg2_proslam_jax.ops.gn_pallas import gn_burst_stereo
+from srrg2_proslam_jax.ops.pinhole import Camera
 
 CAM = Camera(fx=450.0, fy=450.0, cx=320.0, cy=240.0, rows=480, cols=640,
              baseline_px=45.0)
@@ -72,3 +72,20 @@ def test_pallas_burst_converges_to_gt(rng):
     assert float(jnp.max(jnp.abs(t_err))) < 1e-3
     assert float(ang) < 1e-4
     assert int(s_k.num_inliers) == pts.shape[0]
+
+
+def test_pallas_burst_heavy_weights(rng):
+    """Information weights ~1e8 push H's entries past 1e13: the
+    Jacobi-scaled Cholesky still solves the system like the XLA path."""
+    pts, meas, w, mask, X_gt = _problem(rng)
+    w = w * 1e8
+    system = lambda X: gn.stereo_projective_system(
+        X, pts, meas, w, mask, CAM, 25.0)
+    X_ref, _ = gn.gn_iterate(system, se3.identity(), 5)
+    X_k, s_k = gn_burst_stereo(se3.identity(), pts, meas, w, mask, CAM,
+                               iterations=5, interpret=True)
+    assert np.all(np.isfinite(np.asarray(X_k)))
+    np.testing.assert_allclose(np.asarray(X_k), np.asarray(X_ref),
+                               atol=5e-4)
+    t_err, _ = se3.error_t_and_angle(X_k, X_gt)
+    assert float(jnp.max(jnp.abs(t_err))) < 1e-3

@@ -10,9 +10,9 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.tracker import TrackerConfig, initial_state, track_step
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.tracker import TrackerConfig, initial_state, track_step
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

@@ -8,8 +8,8 @@ fixture, fixtures.hpp:91-421).
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import se3
-from srrg2_proslam_tpu.ops.landmark_estimators import (
+from srrg2_proslam_jax.ops import se3
+from srrg2_proslam_jax.ops.landmark_estimators import (
     MeasurementBuffer,
     SmootherConfig,
     WeightedMeanConfig,
@@ -18,7 +18,7 @@ from srrg2_proslam_tpu.ops.landmark_estimators import (
     smoother_update_batch,
     weighted_mean_update_batch,
 )
-from srrg2_proslam_tpu.ops.pinhole import Camera
+from srrg2_proslam_jax.ops.pinhole import Camera
 
 
 CAM = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600,

@@ -1,7 +1,7 @@
 """Live viewer (F13 analog): HTTP server serves the SLAM state + page.
 
 The reference runs an interactive 3-D canvas on a viewer thread
-(example_slam_3d.cpp:80,127-144); the TPU-pod analog is an embedded HTTP
+(example_slam_3d.cpp:80,127-144); the headless analog is an embedded HTTP
 server whose page draws the top-down trajectory/map and whose
 ``/state.json`` endpoint feeds dashboards.  This test drives a small SLAM
 run, refreshes the viewer, and asserts both endpoints serve the live state.
@@ -11,10 +11,10 @@ import urllib.request
 
 import numpy as np
 
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.viz import LiveViewer, snapshot
+from srrg2_proslam_jax.viz import LiveViewer, snapshot
 from tests.test_slam import CAM
 from tests.test_speculation import _frames_linear
 
@@ -46,7 +46,7 @@ def test_live_viewer_serves_state(rng):
 
 def test_snapshot_closure_edges(rng):
     """Closure events map to frame-index pairs the page can draw."""
-    from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
+    from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
     from tests.test_speculation import _frames_out_and_back
 
     frames = _frames_out_and_back(rng)

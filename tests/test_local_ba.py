@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, LocalBAConfig, SplittingConfig,
 )
 from tests.test_slam import CAM, _world, _stereo_measurements

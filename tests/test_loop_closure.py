@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import loop_closure
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.models import loop_closure
+from srrg2_proslam_jax.ops import se3
 
 
 def _random_desc(rng, n):
@@ -183,7 +183,7 @@ def test_validate_rejects_garbage_geometry():
 
 
 def test_sharded_query_matches_single_device():
-    from srrg2_proslam_tpu import parallel
+    from srrg2_proslam_jax import parallel
 
     rng = np.random.RandomState(4)
     cfg = loop_closure.LoopDetectorConfig(minimum_age_difference=1)

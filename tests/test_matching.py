@@ -7,7 +7,7 @@ matchers recover the GT assignment."""
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import hamming, matching
+from srrg2_proslam_jax.ops import hamming, matching
 
 
 def random_desc(rng, n):
@@ -139,8 +139,8 @@ def test_adapt_stereo_batch_matches_single_rows(rng):
     the per-pair adaptor row for row (the batch path re-implements the
     sub-pixel/assembly tail without vmap for speed)."""
     import numpy as np
-    from srrg2_proslam_tpu.io import synthetic as syn
-    from srrg2_proslam_tpu.models.frontend import (
+    from srrg2_proslam_jax.io import synthetic as syn
+    from srrg2_proslam_jax.models.frontend import (
         StereoAdaptorConfig, adapt_stereo, adapt_stereo_batch,
     )
 

@@ -11,12 +11,12 @@ exercised through deterministic hand-built scenes.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models import landmarks as lm
-from srrg2_proslam_tpu.models.tracker import (
+from srrg2_proslam_jax.models import landmarks as lm
+from srrg2_proslam_jax.models.tracker import (
     MergerConfig, TrackerConfig, initial_state, track_step,
 )
-from srrg2_proslam_tpu.ops.triangulation import triangulate_rectified
-from srrg2_proslam_tpu.ops.pinhole import unproject
+from srrg2_proslam_jax.ops.triangulation import triangulate_rectified
+from srrg2_proslam_jax.ops.pinhole import unproject
 from tests.test_slam import CAM
 
 N = 64          # measurement capacity in these tests

@@ -13,9 +13,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu import parallel
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax import parallel
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
 from tests.test_slam import CAM

@@ -25,7 +25,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from srrg2_proslam_tpu.parallel import multihost
+from srrg2_proslam_jax.parallel import multihost
 
 pid = int(sys.argv[1])
 nproc = int(sys.argv[2])
@@ -61,7 +61,7 @@ assert got == expect, (got, expect)
 # the cross-process test must exercise a SLAM stage, not a bare psum)
 import numpy as np
 from functools import partial
-from srrg2_proslam_tpu.models import loop_closure as lc
+from srrg2_proslam_jax.models import loop_closure as lc
 
 S, budget = 4, 32
 rng = np.random.RandomState(7)
@@ -111,13 +111,13 @@ print(f"proc {pid}: psum over {ndev} devices across {nproc} processes OK; "
 # the SAME trajectory as a local single-process run.  Host-side control
 # is deterministic given the replicated packets, so the two processes
 # stay in lockstep with no extra coordination (parallel/multihost.py).
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
-from srrg2_proslam_tpu.ops import se3 as se3_ops
-from srrg2_proslam_tpu.ops.pinhole import Camera
+from srrg2_proslam_jax.models.tracker import TrackerConfig
+from srrg2_proslam_jax.ops import se3 as se3_ops
+from srrg2_proslam_jax.ops.pinhole import Camera
 
 CAM = Camera(fx=450.0, fy=450.0, cx=300.0, cy=200.0, rows=400, cols=600,
              baseline_px=250.0 * 0.45)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from srrg2_proslam_tpu.io import datasets, native
+from srrg2_proslam_jax.io import datasets, native
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

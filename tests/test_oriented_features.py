@@ -12,10 +12,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.ops.features import (
+from srrg2_proslam_jax.ops.features import (
     BORDER, FeatureExtractorConfig, extract_features,
 )
-from srrg2_proslam_tpu.ops.matching import (
+from srrg2_proslam_jax.ops.matching import (
     BruteforceMatcherConfig, match_bruteforce,
 )
 

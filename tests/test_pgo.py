@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import pgo, se3
+from srrg2_proslam_jax.ops import pgo, se3
 
 
 def _ring_graph(n=8, edge_capacity=16, noise=0.0, rng=None):
@@ -63,7 +63,7 @@ def test_pgo_corrects_perturbed_guesses():
 
 
 def test_pgo_sharded_matches_single_device():
-    from srrg2_proslam_tpu import parallel
+    from srrg2_proslam_jax import parallel
 
     rng = np.random.RandomState(2)
     graph, gt = _ring_graph(n=8, edge_capacity=16, rng=rng)
@@ -100,7 +100,7 @@ def test_pgo_cg_matches_dense():
 
 def test_pgo_cg_scales_to_large_graph():
     # 256 poses in a noisy ring — the regime where the matrix-free solver
-    # is the right path at pod scale (the raw dense Newton step here is
+    # is the right path at large scale (the raw dense Newton step here is
     # hundreds of meters and needs the trust region to converge at all)
     rng = np.random.RandomState(6)
     n = 256
@@ -126,7 +126,7 @@ def test_edge_residuals_flag_inconsistent_closure():
     refuses to satisfy it against the anchored chain)."""
     import numpy as np
     import jax.numpy as jnp
-    from srrg2_proslam_tpu.ops import pgo, se3
+    from srrg2_proslam_jax.ops import pgo, se3
 
     N = 6
     g = pgo.empty_graph(8, 16)

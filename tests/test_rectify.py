@@ -14,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.io.rectify import (
+from srrg2_proslam_jax.io.rectify import (
     CameraCalib, _distort_radtan, load_asl_sensor_yaml, remap, stereo_rectify,
 )
 
@@ -103,10 +103,10 @@ def test_rectified_epipolar_geometry_exact():
 
 
 def test_rectified_matches_have_horizontal_epipolar_lines():
-    from srrg2_proslam_tpu.ops.features import (
+    from srrg2_proslam_jax.ops.features import (
         FeatureExtractorConfig, extract_features,
     )
-    from srrg2_proslam_tpu.ops.matching import (
+    from srrg2_proslam_jax.ops.matching import (
         BruteforceMatcherConfig, match_bruteforce,
     )
 

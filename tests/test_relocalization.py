@@ -1,8 +1,8 @@
 """Relocalization: returning to a mapped area must reload the old local map."""
 import numpy as np
 
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
 from tests.test_slam import CAM, _world, _stereo_measurements

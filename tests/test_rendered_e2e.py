@@ -17,14 +17,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.metrics import trajectory as tm
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.metrics import trajectory as tm
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -18,13 +18,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.io import synthetic as syn
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.io import synthetic as syn
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
+from srrg2_proslam_jax.models.tracker import TrackerConfig
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,7 +166,7 @@ def test_fast_rotation_under_kitti_gates():
     error 1.32 -> 0.31 m) and with inverse-depth weighting brings the
     other two within 3-8% of the gate — shipped as
     configurations/aggressive_motion_*.json."""
-    from srrg2_proslam_tpu.metrics import trajectory as tm
+    from srrg2_proslam_jax.metrics import trajectory as tm
 
     cam = syn.synthetic_camera(rows=320, cols=416, fx=300.0)
     planes = syn.make_room(size_x=20.0, size_z=26.0)
@@ -204,7 +204,7 @@ def test_aliased_texture_no_false_closures():
     PGO and rejects closures that bend the chain against its own odometry
     — so the DEFAULT minimum_matches now hold precision (VERDICT r4
     item 3; round 4 shipped gate-tightening to 100 instead)."""
-    from srrg2_proslam_tpu.metrics import trajectory as tm
+    from srrg2_proslam_jax.metrics import trajectory as tm
 
     cam = syn.synthetic_camera(rows=320, cols=416, fx=300.0)
     planes = syn.make_room(size_x=20.0, size_z=26.0, tex_size=128)

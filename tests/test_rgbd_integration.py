@@ -12,11 +12,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.io.quaternions import quaternion_to_rotation
-from srrg2_proslam_tpu.models.frontend import DepthAdaptorConfig, adapt_rgbd
-from srrg2_proslam_tpu.models.tracker import TrackerConfig, initial_state, track_step
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.io.quaternions import quaternion_to_rotation
+from srrg2_proslam_jax.models.frontend import DepthAdaptorConfig, adapt_rgbd
+from srrg2_proslam_jax.models.tracker import TrackerConfig, initial_state, track_step
+from srrg2_proslam_jax.ops import se3
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

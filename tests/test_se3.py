@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.ops import se3
 
 
 def random_twists(rng, n, t_scale=1.0, w_scale=0.5):

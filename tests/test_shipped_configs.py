@@ -7,12 +7,12 @@ import os
 
 import pytest
 
-from srrg2_proslam_tpu.utils import config as cfg
-from srrg2_proslam_tpu.models.slam import GraphSLAM, GraphSLAMConfig
-from srrg2_proslam_tpu.models.frontend import (
+from srrg2_proslam_jax.utils import config as cfg
+from srrg2_proslam_jax.models.slam import GraphSLAM, GraphSLAMConfig
+from srrg2_proslam_jax.models.frontend import (
     DepthAdaptorConfig, StereoAdaptorConfig,
 )
-from srrg2_proslam_tpu.io.datasets import kitti_camera
+from srrg2_proslam_jax.io.datasets import kitti_camera
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "configurations")
 DATASETS = ("kitti", "euroc", "icl", "tum", "malaga")

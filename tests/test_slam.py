@@ -8,12 +8,12 @@ checking local-map splitting, graph growth, and trajectory consistency.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.io.datasets import kitti_camera
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.io.datasets import kitti_camera
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig, TRACKING,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.models.tracker import TrackerConfig
+from srrg2_proslam_jax.ops import se3
 
 CAM = kitti_camera(rows=400, cols=600)._replace(fx=450.0, fy=450.0,
                                                 cx=300.0, cy=200.0,
@@ -98,7 +98,7 @@ def test_slam_robot_in_world_accessor(rng):
 
 def test_slam_loop_closure_path_runs(rng):
     """Out-and-back loop exercises the detect/validate/optimize path."""
-    from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
+    from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
 
     pts_w = _world(rng, n=500)
     desc = rng.choice(np.array([-1, 1], np.int8), size=(500, 256))

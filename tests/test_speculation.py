@@ -11,12 +11,12 @@ that exercise splits, losses, loop closures, and relocalization.
 import numpy as np
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu.models.loop_closure import LoopDetectorConfig
-from srrg2_proslam_tpu.models.slam import (
+from srrg2_proslam_jax.models.loop_closure import LoopDetectorConfig
+from srrg2_proslam_jax.models.slam import (
     GraphSLAM, GraphSLAMConfig, SplittingConfig,
 )
-from srrg2_proslam_tpu.models.tracker import TrackerConfig
-from srrg2_proslam_tpu.ops import se3
+from srrg2_proslam_jax.models.tracker import TrackerConfig
+from srrg2_proslam_jax.ops import se3
 from tests.test_slam import CAM, _stereo_measurements, _world
 
 

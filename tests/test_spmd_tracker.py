@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srrg2_proslam_tpu import parallel
-from srrg2_proslam_tpu.io.datasets import kitti_camera
-from srrg2_proslam_tpu.models.tracker import TrackerConfig, initial_state, track_step
+from srrg2_proslam_jax import parallel
+from srrg2_proslam_jax.io.datasets import kitti_camera
+from srrg2_proslam_jax.models.tracker import TrackerConfig, initial_state, track_step
 
 
 def _synthetic(rng, n_meas, capacity, cam):

@@ -14,8 +14,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.models.frontend import StereoAdaptorConfig, adapt_stereo
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.models.frontend import StereoAdaptorConfig, adapt_stereo
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "test_data")
 

@@ -3,11 +3,11 @@ import os
 
 import numpy as np
 
-from srrg2_proslam_tpu.io import datasets
-from srrg2_proslam_tpu.io.quaternions import (
+from srrg2_proslam_jax.io import datasets
+from srrg2_proslam_jax.io.quaternions import (
     quaternion_to_rotation, rotation_to_quaternion,
 )
-from srrg2_proslam_tpu.utils import profiling
+from srrg2_proslam_jax.utils import profiling
 
 
 def test_profile_time_accumulates():
